@@ -1,4 +1,4 @@
-"""binius_ntt_tpu — TPU-native binary tower field / NTT / sumcheck framework.
+"""binius_ntt_tpu — binary tower field / NTT / sumcheck framework in JAX.
 
 A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
 CUDA reference library shourovrm/binius-NTT (see SURVEY.md):
@@ -8,7 +8,7 @@ CUDA reference library shourovrm/binius-NTT (see SURVEY.md):
   * the additive (Gao-Mateer/LCH) NTT and the radix-2 BB31 NTT (ntt/);
   * the GF(2^128) bit-sliced sumcheck prover and the QM31 prime-field
     sumcheck prover (sumcheck/);
-  * multi-chip sharding over a jax Mesh with ppermute stage exchange and
+  * multi-device sharding over a jax Mesh with ppermute stage exchange and
     XOR all-reduce (parallel/).
 """
 

@@ -5,9 +5,9 @@ Matches the reference's vendored RISC Zero ``Fp``
 mod 2^32, R = 2^32, R2 = 1172168163; REDC multiply, add/sub with one
 conditional correction.
 
-TPU note: there is no native 32x32->64 multiply on the VPU and int64 is
-emulated, so ``mulhi`` is built from 16-bit limb products — four uint32
-multiplies plus carries, all elementwise and fusible.
+``mulhi`` is built from 16-bit limb products — four uint32 multiplies plus
+carries, all elementwise and fusible, with no 64-bit type (JAX runs
+without x64).
 """
 
 from __future__ import annotations
@@ -70,8 +70,8 @@ def _mulhi_P(a):
 
     P's limbs are b0 = 1, b1 = 0x7800 = (1<<15) - (1<<11), so the four
     generic 16x16 limb products collapse to shifts: integer multiplies
-    are the scarce VPU resource in this kernel (PERF.md BB31 section),
-    and this removes 4 of the generic path's 11 per-butterfly multiplies.
+    are the costly op in this path, and this removes 4 of the generic
+    path's 11 per-butterfly multiplies.
     """
     a0 = a & 0xFFFF
     a1 = a >> 16
@@ -90,8 +90,7 @@ def mont_mul(a, b):
     per call; here only the four 16x16 limb products of a*b remain —
     ``M * lo`` is shift-only (M = 0x88000001 = 2^31 + 2^27 + 1, and the
     reference's trailing ``* 0xFFFFFFFF`` is just negation), and
-    ``hi(red*P)`` is shift-only via _mulhi_P.  Integer multiplies are
-    the scarce VPU resource in the BB31 kernel (PERF.md).
+    ``hi(red*P)`` is shift-only via _mulhi_P.
     """
     lo, hi = _mul32_full(a, b)
     red = jnp.uint32(0) - (lo + (lo << 31) + (lo << 27))

@@ -5,12 +5,11 @@ machine-generated straight-line XOR/AND code (multiply_unrolled<H>,
 src/ulvt/finite_fields/circuit_generator/unrolled/binary_tower_unrolled*.cu,
 produced by circuit_generator/multiply_and_generate_circuit.cpp:86-155).
 
-On TPU we do not need codegen: the Karatsuba recursion *is* the circuit, and
-we evaluate it level-synchronously — at level ``d`` all ``3^d`` pending
-half-width products are stacked along one axis and processed by a handful of
-large vector ops.  This keeps the XLA graph to O(height^2) ops (instead of
-~13k scalar statements) while performing the same 3^h leaf ANDs, each as a
-single fused VPU op over the whole batch.
+We do not need codegen: the Karatsuba recursion *is* the circuit, and we
+evaluate it level-synchronously — at level ``d`` all ``3^d`` pending
+half-width products are stacked along one axis and processed by a handful
+of large vector ops.  This keeps the XLA graph to O(height^2) ops (instead
+of ~15k statements) while performing the same 3^h leaf ANDs.
 
 Layout: an array of shape ``(..., W)`` uint32, ``W = 2^height``, where the
 last axis is the bit-plane index and each bit-lane of a word is one of 32

@@ -9,8 +9,7 @@ Matches the reference's field definitions exactly:
 JAX representation: structure-of-arrays — a QM31 array is a uint32 array of
 shape (..., 4) with components (a, b, c, d) = (a + bi) + (c + di)j, each
 component canonical in [0, P).  All ops are elementwise uint32; the 31x31
-product uses the same 16-bit-limb mulhi as baby_bear (TPU has no native
-64-bit multiply).
+product uses the same 16-bit-limb mulhi as baby_bear (no 64-bit type).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ The reference's compact wide muls live in its test utils — the 64-bit
 scalar tower (src/ulvt/sumcheck/test/utils/unbitsliced_mul.cuh:16-262) and
 the 128-bit Karatsuba split on top of it
 (src/ulvt/sumcheck/test/utils/tower_7_mul.cu:4-24).  Here they are
-device-side vector ops (BASELINE north-star: compact 4x-uint32-per-element
-GF(2^128) multiplication on the VPU):
+device-side vector ops (compact 4x-uint32-per-element GF(2^128)
+multiplication):
 
   * heights <= 5 delegate to the SWAR form (one full element per uint32
     word, tower_simd.mul_packed at height 5);
@@ -15,9 +15,7 @@ GF(2^128) multiplication on the VPU):
     (binary_tower.cuh:35-50 widened to limb vectors).
 
 Layout: limbs on the LAST axis — ``a`` has shape (..., L) with
-L = 2^(height-5) uint32 limbs per element.  For the Pallas wrapper the
-limb axis is moved off the lane dimension (structure-of-arrays) so every
-vector op runs on well-tiled (rows,) lanes.
+L = 2^(height-5) uint32 limbs per element.
 """
 
 from __future__ import annotations
@@ -82,39 +80,3 @@ def multiply_alpha_compact(x, height: int = 7):
     nl = 1 << (height - 5)
     return jnp.stack(
         _alpha_limbs([x[..., i] for i in range(nl)], height), axis=-1)
-
-
-def mul_compact_tiles(a, b, height: int = 7, *, tile: int = 2048):
-    """Pallas TPU kernel for the compact multiply: (N, L) x (N, L) -> (N, L).
-
-    Works structure-of-arrays inside the kernel — the limb axis sits on
-    sublanes and every vector op runs on (tile,)-lane rows — so the tiny
-    L-wide minor axis never touches a padded VMEM layout.
-    """
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, nl = a.shape
-    assert nl == 1 << (height - 5)
-    t = min(tile, n)
-    # grid covers n // t full blocks: a ragged tail would silently leave
-    # its output rows unwritten
-    assert n % t == 0, f"n={n} must be a multiple of the tile ({t})"
-    soa_a = a.T                       # (L, N) — one 2-D transpose
-    soa_b = b.T
-    bspec = pl.BlockSpec((nl, t), lambda i: (0, i),
-                         memory_space=pltpu.VMEM)
-
-    def kern(a_ref, b_ref, o_ref):
-        la = [a_ref[i] for i in range(nl)]
-        lb = [b_ref[i] for i in range(nl)]
-        out = _mul_limbs(la, lb, height)
-        for i in range(nl):
-            o_ref[i] = out[i]
-
-    out = pl.pallas_call(
-        kern, grid=(n // t,), in_specs=[bspec, bspec], out_specs=bspec,
-        out_shape=jax.ShapeDtypeStruct((nl, n), a.dtype),
-    )(soa_a, soa_b)
-    return out.T

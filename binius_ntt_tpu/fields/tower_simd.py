@@ -3,10 +3,10 @@
 A uint32 word is interpreted as ``32 / 2^h`` packed GF(2^(2^h)) elements and
 all of them are multiplied in parallel using only XOR/AND/shift — exactly the
 representation of the reference's ``mul_binary_tower_32b_simd``
-(src/ulvt/finite_fields/binary_tower_simd.cuh:77-149).  On TPU this runs on
-the VPU with every op an elementwise int32 instruction, so it vectorises over
-arrays of any shape with no code change (the idiomatic replacement for the
-reference's per-thread scalar calls).
+(src/ulvt/finite_fields/binary_tower_simd.cuh:77-149).  Every op is an
+elementwise uint32 instruction, so it vectorises over arrays of any shape
+with no code change (the idiomatic replacement for the reference's
+per-thread scalar calls).
 
 At height 5 a word holds a single GF(2^32) element, so this function doubles
 as the *compact-layout* multiplier used by the additive NTT butterfly —
@@ -84,14 +84,9 @@ def inverse_packed(x, height: int):
     The element must occupy the low 2^height bits (upper bits zero), which
     keeps every lane-parallel sub-multiply's unused lanes zero.
 
-    DELIBERATELY off the Pallas/north-star path (decided round 5, see
-    PERF.md "tower inverse"): the recursion is ~600 dependent word-ops per
-    element, XLA already fuses the chain to within ~2.5x of its ALU floor
-    (measured 6.1e8 inv/s, ~2x the reference GPU), and NO production path
-    calls it — NTT normalisation inverts log_h scalars on the HOST and
-    neither sumcheck prover inverts on device.  A Pallas body would buy
-    at most ~2.5x on an op with no callers; revisit only if an inverse
-    ever lands on a hot path.
+    No production path calls it — NTT normalisation inverts log_h scalars
+    on the HOST and neither sumcheck prover inverts on device — so it has
+    no kernel; revisit only if an inverse ever lands on a hot path.
     """
     if height <= 2:
         x2 = mul_packed(x, x, 2)

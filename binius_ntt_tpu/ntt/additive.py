@@ -1,4 +1,4 @@
-"""Additive (Gao–Mateer / LCH) NTT over binary tower fields — TPU-native.
+"""Additive (Gao–Mateer / LCH) NTT over binary tower fields.
 
 Computes the same transform as the reference's AdditiveNTT
 (src/ulvt/ntt/additive_ntt.cuh:176-318) with the same public semantics:
@@ -13,7 +13,7 @@ Computes the same transform as the reference's AdditiveNTT
     additive_ntt.cuh:222-247 reversed kernel launches + descending stage loop
     :138-154), with the butterfly u' = u + w*v ; v' = u' + v (:10-14).
 
-TPU-first design decisions (not a port):
+Design decisions (not a port):
   * Twiddles are GF(2)-linear in the indicator bits
     (calculate_twiddle, additive_ntt.cuh:59-77: an XOR-subset-sum of
     ``constants[stage][k]`` over set bits of ``coset << (log_h-1-stage) |
@@ -41,6 +41,9 @@ from ..fields import tower_scalar as ts
 from ..fields.tower_simd import mul_packed
 
 __all__ = ["AdditiveNTT", "precompute_subspace_evals", "stage_twiddles"]
+
+# From this size on, apply() compiles one program per stage.
+PER_STAGE_JIT_LOG_H = 22
 
 
 def precompute_subspace_evals(log_h: int, log_rate: int, height: int = 5):
@@ -98,8 +101,7 @@ class AdditiveNTT:
     FanPaarTowerField<5> instantiation, test_ntt.cu:201-202).
     """
 
-    def __init__(self, log_h: int, log_rate: int = 0, height: int = 5,
-                 use_fused: bool | None = None):
+    def __init__(self, log_h: int, log_rate: int = 0, height: int = 5):
         # validation mirrors AdditiveNTTConf (nttconf.cuh:55-60)
         if not log_h >= 1:
             raise ValueError("log_h must be >= 1")
@@ -115,22 +117,6 @@ class AdditiveNTT:
         self.height = height
 
         rows = precompute_subspace_evals(log_h, log_rate, height)
-        # fused stage-group Pallas path (ntt/pallas_fused32.py): fixed tile
-        # shapes make compile cost size-independent — the per-stage jit path
-        # pays superlinear XLA:TPU compiles at 2^25+ (hours at 2^27+)
-        if use_fused is None:
-            use_fused = (height == 5 and log_h >= 7
-                         and jax.default_backend() == "tpu")
-        self.use_fused = use_fused and height == 5 and log_h >= 7
-        if self.use_fused:
-            from . import pallas_fused32 as pf32
-
-            tables = pf32.build_tables32(rows, log_h, log_rate)
-            self._apply_fused = jax.jit(partial(
-                _apply_fused32_compact, tables=tables, log_h=log_h,
-                log_rate=log_rate,
-                conv_pallas=jax.default_backend() == "tpu"))
-            return
         # one twiddle table per stage, indexed by the full indicator
         self._twiddles = tuple(
             jnp.asarray(stage_twiddles(rows[s], log_h + log_rate - 1 - s))
@@ -145,10 +131,9 @@ class AdditiveNTT:
         """x: (2^log_h,) uint32 IN_ORDER -> (2^(log_h+log_rate),) IN_ORDER.
 
         per_stage_jit: compile one small program per butterfly stage instead
-        of one monolithic program.  XLA:TPU compile time for the monolithic
-        graph grows superlinearly with tensor size (~15 min at 2^24), so
-        large transforms default to the per-stage path; steady-state runtime
-        is within a few dispatch overheads of the fused program.
+        of one monolithic program, so compile time stays flat in the
+        transform size; the steady state pays one dispatch per stage.
+        Defaults on for log_h >= PER_STAGE_JIT_LOG_H.
 
         Accepts an NTTData wrapper: the additive transform requires
         IN_ORDER input — a BIT_REVERSED wrapper raises, the analogue of
@@ -168,10 +153,8 @@ class AdditiveNTT:
             raise ValueError(
                 f"apply: input shape {x.shape} != (2^log_h,) = "
                 f"({1 << self.log_h},)")
-        if self.use_fused:
-            return self._apply_fused(x)
         if per_stage_jit is None:
-            per_stage_jit = self.log_h >= 22
+            per_stage_jit = self.log_h >= PER_STAGE_JIT_LOG_H
         if self.log_h < 7:
             per_stage_jit = False    # (128, rows) view needs n >= 128
         if not per_stage_jit:
@@ -182,8 +165,8 @@ class AdditiveNTT:
             data = _additive_ntt_stage(
                 data, self._twiddles[s], s=s, log_h=self.log_h,
                 log_rate=self.log_rate, height=self.height)
-        # small-span stages on the transposed (C, 128, rows) view (the
-        # (blocks, 2, 2^s) form pads its tiny minor 64x in HBM at 2^26+)
+        # small-span stages on the transposed (C, 128, rows) view, so every
+        # array keeps a long minor axis
         data = _transpose_in(data)
         for s in range(min(self.log_h - 1, 6), -1, -1):
             data = _additive_ntt_stage_small(
@@ -191,45 +174,6 @@ class AdditiveNTT:
                 log_rate=self.log_rate, height=self.height)
         data = _transpose_out(data)
         return data.reshape(cosets << self.log_h)
-
-
-def _bitslice_lane_groups(xp):
-    """32x32 bit transpose within each aligned 32-lane group of (R, 128).
-
-    Takes the flat compact array reshaped (n/128, 128) — lane 32c+j of row
-    r holds element 128r+32c+j — to the fused kernel's packed bit-sliced
-    layout (lane 32c+p = plane p of block 4r+c) and back: the transform is
-    self-inverse (a bit-matrix transpose per group).  Implemented as the
-    Hacker's-Delight ladder with lane ROLLS instead of row pairing, so
-    every intermediate keeps the full (R, 128) shape — any form that
-    materialises a (..., 32)-minor array pads 4-64x in XLA:TPU HBM and
-    OOMs outright at 2^26+ (measured: a (nb/4, 4, 32) intermediate wanted
-    64 GB at 2^29).
-    """
-    lane = jax.lax.broadcasted_iota(jnp.uint32, (1, 128), 1)
-    m = 0x0000FFFF
-    j = 16
-    while j:
-        low = (lane & jnp.uint32(j)) == 0
-        tl = ((xp >> j) ^ jnp.roll(xp, -j, axis=-1)) & jnp.uint32(m)
-        xp = jnp.where(low, xp ^ (tl << j), xp ^ jnp.roll(tl, j, axis=-1))
-        j >>= 1
-        if j:
-            m = (m ^ (m << j)) & 0xFFFFFFFF
-    return xp
-
-
-def _apply_fused32_compact(x, *, tables, log_h: int, log_rate: int,
-                           conv_pallas: bool = True):
-    """Compact (n,) -> fused packed-bitsliced transform -> compact out."""
-    from . import pallas_fused32 as pf32
-
-    conv = (pf32.bitslice_lane_groups_pallas if conv_pallas
-            else _bitslice_lane_groups)
-    n = 1 << log_h
-    packed = conv(x.reshape(n // 128, 128))
-    out = pf32.apply_fused32(packed, tables, log_h=log_h, log_rate=log_rate)
-    return conv(out).reshape(-1)
 
 
 @jax.jit

@@ -5,7 +5,7 @@ The reference tracks element order as DATA, not as a per-call flag:
 BIT_REVERSED}`` (src/ulvt/ntt/nttconf.cuh:9-21), and ``apply`` REJECTS a
 mis-ordered input instead of silently transforming garbage
 (additive_ntt.cuh:206-208 returns false; gpuntt.cuh:180 labels radix-2
-output IN_ORDER).  This is the TPU framework's equivalent: a tiny pytree
+output IN_ORDER).  This is the framework's equivalent: a tiny pytree
 wrapper the NTT classes accept and return, so order bookkeeping survives
 across call boundaries.
 

@@ -1,8 +1,9 @@
 """Device mesh helpers + multi-host initialisation.
 
-The reference is single-GPU/single-process (SURVEY.md §5); all multi-chip
-structure here is new, TPU-native design: a 1-D mesh over the element axis,
-with collectives riding ICI within a slice and DCN between slices/hosts.
+The reference is single-GPU/single-process (SURVEY.md §5); all multi-device
+structure here is new design: a 1-D mesh over the element axis.  The cards
+of one host reach each other all to all at one rate, so the mesh follows
+the algorithm alone: ``jax.devices()`` in order.
 
 Multi-host bring-up is ``initialize_distributed()`` below — call it once
 per process before touching devices, then build the mesh over
@@ -12,10 +13,6 @@ EVERY process).  Launch recipe (one command per host)::
     # host 0                                    # host i of N
     JAX_COORDINATOR_ADDRESS=host0:8476 \\
     JAX_NUM_PROCESSES=N JAX_PROCESS_ID=i  python your_driver.py
-
-On Cloud TPU pods (detected by a multi-entry ``TPU_WORKER_HOSTNAMES``),
-``initialize_distributed()`` with no env falls back to
-``jax.distributed.initialize()``'s own auto-detection (TPU metadata).
 """
 
 from __future__ import annotations
@@ -59,16 +56,6 @@ def initialize_distributed(coordinator_address: str | None = None,
         process_id = int(env_pid)
 
     if coordinator_address is None and num_processes in (None, 1):
-        # No explicit configuration.  On a multi-host Cloud TPU pod the
-        # runtime publishes the worker list (TPU_WORKER_HOSTNAMES); there,
-        # a bare jax.distributed.initialize() self-configures from TPU
-        # metadata.  A single-entry (or absent) list is the single-process
-        # dev/test surface — leave it untouched.
-        workers = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-        if len([w for w in workers.split(",") if w.strip()]) > 1:
-            jax.distributed.initialize()
-            _initialized = True
-            return True
         return False                     # single-process: nothing to do
 
     jax.distributed.initialize(
@@ -81,22 +68,11 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
-    """1-D mesh over the first `n_devices` devices (default: all).
-
-    Device order comes from ``mesh_utils.create_device_mesh`` when
-    available, which places ICI-adjacent devices at adjacent mesh
-    positions — so the sharded NTT's low device-bit ppermutes (the most
-    frequent exchanges) ride ICI, and only the top log2(n_hosts) bits
-    cross DCN.  In a multi-process runtime this mesh spans ALL processes'
-    devices (each process addresses its local shard only).
+    """1-D mesh over the first `n_devices` devices (default: all), in
+    ``jax.devices()`` order.  In a multi-process runtime this mesh spans
+    ALL processes' devices (each process addresses its local shard only).
     """
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
-    try:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_device_mesh((len(devs),), devices=devs)
-    except Exception:                     # noqa: BLE001 — CPU/virtual meshes
-        arr = np.array(devs)
-    return Mesh(arr, (AXIS,))
+    return Mesh(np.array(devs), (AXIS,))

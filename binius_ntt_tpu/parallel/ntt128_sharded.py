@@ -26,16 +26,18 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as Pspec
 
-from ..layout.bitslicing import bitslice_transpose
+from ..fields import bitsliced as bf
 from ..ntt.additive import precompute_subspace_evals
 from ..ntt.additive_bitsliced import (
     HEIGHT,
     IPV,
     W,
-    _LANE_MASKS,
     _expand_bits,
-    _stage_twiddles_multiword,
+    high_stage,
+    low_stage,
+    stage_tables,
 )
+from ..utils.capabilities import check_platform
 from .mesh import AXIS
 
 __all__ = ["ShardedAdditiveNTT128"]
@@ -45,85 +47,36 @@ __all__ = ["ShardedAdditiveNTT128"]
 # async collectives (collective-permute-start/done) can run half k+1's
 # exchange while half k's butterflies compute — and, across stages, half
 # 0's next-stage exchange while half 1 is still multiplying.  Total bytes
-# exchanged are unchanged (pinned by tools/comm_volume.py); SCALING.md §4
-# puts the D=16 weak-scaling gain at ~80% -> ~95%.  1 disables.
+# exchanged are unchanged (pinned by tools/comm_volume.py).  Whether the
+# overlap happens on a real mesh is read from a trace.  1 disables.
 OVERLAP_HALVES = 2
 
 
 class ShardedAdditiveNTT128:
-    """use_fused=True (default) runs the shard-LOCAL stages through the
-    stage-group-fused kernel (ntt/pallas_fused.py) — the same 2-3 HBM
-    passes as single-chip, with the device-index twiddle contribution
-    XORed in as a per-shard correction plane (Pallas on TPU, the vmapped
-    emulation on CPU meshes)."""
+    """The bit-sliced GF(2^128) additive NTT with the batch axis sharded
+    over a 1-D mesh.  Shard-local stages run the single-device stage
+    bodies (``high_stage``, ``low_stage``) on a slice of the same twiddle
+    tables."""
 
-    def __init__(self, log_h: int, log_rate: int, mesh,
-                 use_fused: bool = True):
+    def __init__(self, log_h: int, log_rate: int, mesh):
         self.log_h = log_h
         self.log_rate = log_rate
         self.mesh = mesh
+        check_platform()
         n_dev = int(mesh.devices.size)
         self.log_d = int(np.log2(n_dev))
         assert 1 << self.log_d == n_dev
         nb = (1 << log_h) // 32
         assert nb >= 2 * n_dev, "need >= 2 batches per device"
-        self.use_fused = use_fused and (log_h - 5 - self.log_d) >= 0
 
         rows = precompute_subspace_evals(log_h, log_rate, HEIGHT)
-        fused_groups = None
-        self._fused_arrays = ()
-        local_top = 0          # stages below this use per-stage tables
-        if self.use_fused:
-            from ..ntt import pallas_fused as pf
-
-            tables = pf.build_tables_sharded(rows, log_h, log_rate,
-                                             self.log_d)
-            fused_groups = tuple((t0, k, low, zf)
-                                 for (t0, k, low, _, _, _, zf, _) in tables)
-            self._fused_arrays = tuple(
-                (mt, mi, ln, dt)
-                for (_, _, _, mt, mi, ln, _, dt) in tables)
-            # fused shard-local stages never read the per-stage tables —
-            # only the cross-device stages (s >= 5 + local batch bits)
-            # need them (at 2^28 the dead low-stage doubling tables alone
-            # would be hundreds of MB of device memory)
-            local_top = 5 + (log_h - 5 - self.log_d)
-        high_tables = {}
-        low_batch_tables = {}
-        low_lane_planes = {}
-        for s in range(log_h):
-            if s < local_top:
-                continue
-            bits = log_h + log_rate - 1 - s
-            if s >= 5:
-                high_tables[s] = jnp.asarray(
-                    _stage_twiddles_multiword(rows[s], bits))
-            else:
-                lane_bits = min(4 - s, bits)
-                lane_vals = np.zeros((32, IPV), dtype=np.uint32)
-                for j in range(32):
-                    v = 0
-                    jj = j >> (s + 1)
-                    for m in range(lane_bits):
-                        if (jj >> m) & 1:
-                            v ^= rows[s][m]
-                    for i in range(IPV):
-                        lane_vals[j, i] = (v >> (32 * i)) & 0xFFFFFFFF
-                low_lane_planes[s] = jnp.asarray(
-                    bitslice_transpose(lane_vals.reshape(W)))
-                low_batch_tables[s] = jnp.asarray(
-                    _stage_twiddles_multiword(
-                        rows[s][lane_bits:], bits - lane_bits))
-        self._tables = (high_tables, low_batch_tables, low_lane_planes)
-
+        self._tables = stage_tables(rows, log_h, log_rate)
         self._data_sharding = NamedSharding(mesh, Pspec(None, AXIS, None))
         self._apply = jax.jit(jax.shard_map(
             partial(_sharded_apply128, log_h=log_h, log_rate=log_rate,
-                    log_d=self.log_d, fused_groups=fused_groups,
-                    fused_emulate=jax.default_backend() in ("cpu",)),
+                    log_d=self.log_d),
             mesh=mesh,
-            in_specs=(Pspec(None, AXIS, None), Pspec(), Pspec(), Pspec(),
-                      Pspec()),
+            in_specs=(Pspec(None, AXIS, None), Pspec(), Pspec(), Pspec()),
             out_specs=Pspec(None, AXIS, None),
         ))
 
@@ -139,37 +92,21 @@ class ShardedAdditiveNTT128:
         host = np.broadcast_to(
             np.asarray(data, dtype=np.uint32)[None], (cosets, nb, W))
         x = jax.device_put(host, self._data_sharding)
-        high, lowb, lowl = self._tables
-        out = self._apply(x, _dict_to_tuple(high), _dict_to_tuple(lowb),
-                          _dict_to_tuple(lowl), self._fused_arrays)
+        out = self._apply(x, *self._tables)
         return out.reshape(cosets * nb, W)
 
 
-def _dict_to_tuple(d):
-    return tuple(d[k] for k in sorted(d))
-
-
-def _sharded_apply128(x, high_tables, low_batch_tables, low_lane_planes,
-                      fused_arrays=(), *, log_h: int, log_rate: int,
-                      log_d: int, fused_groups=None, fused_emulate=False):
-    """Per-device body. x: (C, Sb, 128) local batches."""
+def _sharded_apply128(x, high, lowb, lowl, *, log_h: int, log_rate: int,
+                      log_d: int):
+    """Per-device body. x: (C, Sb, 128) local batches; high, lowb, lowl:
+    the stage_tables dicts, replicated."""
     n = 1 << log_h
     nb = n // 32
     cosets = 1 << log_rate
     n_dev = 1 << log_d
     sb = nb // n_dev
-    log_nb_l = log_h - 5 - log_d
     d = jax.lax.axis_index(AXIS)
     coset_ids = jnp.arange(cosets, dtype=jnp.uint32)
-
-    # table keys mirror the ctor's filtering: with the fused local path,
-    # only cross-device stages (s >= 5 + log_nb_l) have per-stage tables
-    local_floor = 5 if fused_groups is None else 5 + log_nb_l
-    high = {s: t for s, t in zip(
-        sorted(s for s in range(5, log_h) if s >= local_floor),
-        high_tables)}
-    lowb = {s: t for s, t in zip(range(min(log_h, 5)), low_batch_tables)}
-    lowl = {s: t for s, t in zip(range(min(log_h, 5)), low_lane_planes)}
 
     # ---- cross-device stages (the top log_d: s >= log_h - log_d) ----
     # Double-buffered shard halves: all ppermutes of a stage are issued
@@ -193,58 +130,30 @@ def _sharded_apply128(x, high_tables, low_batch_tables, low_lane_planes,
             ind = (coset_ids << (log_h - 1 - s)) | block
             w4 = high[s][ind]                       # (C, 4)
             wp = _expand_bits(w4)[:, None, :]       # (C, 1, 128)
-            from ..sumcheck.prover import _mul128
 
             i_am_v = ((d >> bit) & 1).astype(bool)
             new_parts = []
             for p, recv in zip(parts, recvs):
-                wpb = jnp.broadcast_to(wp, p.shape)
                 # one multiply serves both sides (w*v with v = recv on the
                 # u-side device, v = x on the v-side device)
-                m = _mul128(wpb, jnp.where(i_am_v, p, recv))
+                m = bf.multiply(wp, jnp.where(i_am_v, p, recv), HEIGHT)
                 new_parts.append(jnp.where(i_am_v, (recv ^ m) ^ p, p ^ m))
             parts = new_parts
         x = parts[0] if nh == 1 else jnp.concatenate(parts, axis=1)
 
     # ---- shard-local high stages ----
-    for s in range(cross_lo - 1, local_floor - 1, -1):
+    for s in range(cross_lo - 1, 4, -1):
         db = 1 << (s - 5)
         groups_local = sb // (2 * db)
         groups_global = nb // (2 * db)
         # indicator = coset << (log_h-1-s) | group with groups contiguous
-        # per coset: a reshape + slice at this device's offset, NOT a
-        # gather (gathers are row-at-a-time on TPU)
+        # per coset: a reshape + slice at this device's offset, not a
+        # gather
         table = high[s].reshape(cosets, groups_global, IPV)
         w4 = jax.lax.dynamic_slice(
             table, (0, d * groups_local, 0),
             (cosets, groups_local, IPV))
-        wp = _expand_bits(w4)[:, :, None, :]
-        from ..sumcheck.prover import _mul128
-
-        v5 = x.reshape(cosets, groups_local, 2, db, W)
-        u, v = v5[:, :, 0], v5[:, :, 1]
-        u2 = u ^ _mul128(jnp.broadcast_to(wp, v.shape), v)
-        v2 = u2 ^ v
-        x = jnp.stack([u2, v2], axis=2).reshape(cosets, sb, W)
-
-    if fused_groups is not None:
-        # shard-local stages via the fused stage-group kernel: same 2-3
-        # HBM passes as single-chip; the device-index part of every
-        # twiddle indicator arrives as per-stage correction planes looked
-        # up in the doubling table at this device's axis_index
-        from ..ntt import pallas_fused as pf
-
-        for (t0, k, include_low, zf), (mt, mi, ln, dt) in zip(
-                fused_groups, fused_arrays):
-            n_st = mt.shape[0]
-            dvec = jax.lax.dynamic_slice(
-                dt, (0, d, 0), (n_st, 1, IPV)).reshape(n_st, IPV)
-            dpl = _expand_bits(dvec)
-            x = pf.stage_group(
-                x, mt, mi, ln, log_h=log_h, t0=t0, k=k,
-                include_low=include_low, cosets=cosets, zero_flags=zf,
-                log_nb=log_nb_l, dplanes=dpl, emulate=fused_emulate)
-        return x
+        x = high_stage(x, _expand_bits(w4)[:, :, None, :], db)
 
     # ---- low stages (always local) ----
     for s in range(min(log_h - 1, 4), -1, -1):
@@ -253,14 +162,6 @@ def _sharded_apply128(x, high_tables, low_batch_tables, low_lane_planes,
         table = lowb[s].reshape(cosets, nb, IPV)
         a4 = jax.lax.dynamic_slice(
             table, (0, d * sb, 0), (cosets, sb, IPV))
-        wp = _expand_bits(a4) ^ lowl[s][None, None, :]
-        shift = 1 << s
-        umask = jnp.uint32(_LANE_MASKS[s])
-        vmask = jnp.uint32((_LANE_MASKS[s] << shift) & 0xFFFFFFFF)
-        from ..sumcheck.prover import _mul128
-
-        v_at_u = x >> shift
-        un = x ^ _mul128(jnp.broadcast_to(wp, x.shape), v_at_u)
-        x = (un & umask) | ((x ^ (un << shift)) & vmask)
+        x = low_stage(x, _expand_bits(a4) ^ lowl[s][None, None, :], s)
 
     return x

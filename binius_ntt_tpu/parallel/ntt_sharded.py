@@ -4,7 +4,7 @@ The reference scales the butterfly ladder by splitting it into stage-groups
 of <= 11 stages, one kernel launch per group, re-tiling the thread->data
 mapping between groups (src/ulvt/ntt/additive_ntt.cuh:222-247,
 nttconf.cuh:43-46).  That kernel-boundary re-tiling seam is exactly where a
-multi-chip TPU implementation exchanges data between devices (SURVEY.md §5).
+multi-device implementation exchanges data between devices (SURVEY.md §5).
 
 Design (new work — no distributed code exists in the reference):
   * elements block-sharded: device d holds columns [d*S, (d+1)*S) of the

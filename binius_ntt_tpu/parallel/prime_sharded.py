@@ -10,6 +10,11 @@ reference's lazy-u64 atomicAdd reduction
 associative and commutative, so the sharded sums equal the single-chip
 prover's bit-for-bit after canonicalisation.
 
+Each device runs the single-chip fixed-shape kernels (prime_field.py's
+``_round_kernel`` and ``_fold_kernel``) on its local buffer, whose shape
+stays fixed while the live row count halves: one compile serves every
+round.
+
 When one row per device remains, the state gathers onto the single-chip
 prover for the tail rounds (mirroring sumcheck_sharded.py and the
 reference's GPU->CPU migration pattern, sumcheck.cuh:283-297).
@@ -22,42 +27,24 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as Pspec
 
-from ..fields.m31 import P, m31_add, m31_sub, qm31_mul
-from ..sumcheck.prime_field import PrimeFieldSumcheck, _m31_add_monoid
+from ..fields.m31 import P
+from ..sumcheck.prime_field import (PrimeFieldSumcheck, _fold_kernel,
+                                    _round_kernel)
 from .collectives import m31_all_reduce
 from .mesh import AXIS
 
 __all__ = ["ShardedPrimeFieldSumcheck"]
 
 
-def _local_round(evals):
-    """Per-device round body; evals: (2, B_loc, 4) local rows.
+def _local_round(evals, rows):
+    """Per-device round; evals: (2, B_loc, 4) buffer, `rows` live.
 
     Returns the replicated (3, 4) round polynomial at X = 0, 1, 2.
     """
-    half = evals.shape[1] // 2
-    lower, upper = evals[:, :half], evals[:, half:]
-    two_up_minus_low = m31_add(m31_sub(upper, lower), upper)
-
-    def reduce_prod(lo, up):
-        prod = qm31_mul(lo, up)
-        return jax.lax.reduce(prod, jnp.uint32(0), _m31_add_monoid, (0,))
-
-    parts = jnp.stack([
-        reduce_prod(lower[0], lower[1]),
-        reduce_prod(upper[0], upper[1]),
-        reduce_prod(two_up_minus_low[0], two_up_minus_low[1]),
-    ])
-    total = m31_all_reduce(parts, AXIS)
+    total = m31_all_reduce(_round_kernel(evals, rows), AXIS)
     # the add monoid keeps the s == P alias of 0; canonicalise the final
     # value (same guard as the single-chip _round_kernel)
     return jnp.where(total == jnp.uint32(P), jnp.uint32(0), total)
-
-
-def _local_fold(evals, challenge):
-    half = evals.shape[1] // 2
-    lower, upper = evals[:, :half], evals[:, half:]
-    return m31_add(lower, qm31_mul(m31_sub(upper, lower), challenge))
 
 
 class ShardedPrimeFieldSumcheck:
@@ -99,14 +86,20 @@ class ShardedPrimeFieldSumcheck:
         # shard_map's static replication checker; bit-equality vs the
         # single-chip prover is pinned in tests/test_sharded.py.
         self._round_fn = jax.jit(jax.shard_map(
-            lambda e: _local_round(e[0]),
-            mesh=mesh, in_specs=(Pspec(AXIS),), out_specs=Pspec(),
+            lambda e, rows: _local_round(e[0], rows),
+            mesh=mesh, in_specs=(Pspec(AXIS), Pspec()), out_specs=Pspec(),
             check_vma=False,
         ))
         self._fold_fn = jax.jit(jax.shard_map(
-            lambda e, c: _local_fold(e[0], c)[None],
-            mesh=mesh, in_specs=(Pspec(AXIS), Pspec()), out_specs=Pspec(AXIS),
+            lambda e, c, rows: _fold_kernel(e[0], c, rows)[None],
+            mesh=mesh, in_specs=(Pspec(AXIS), Pspec(), Pspec()),
+            out_specs=Pspec(AXIS),
         ))
+
+    @property
+    def _rows(self) -> int:
+        """Live local rows of the fixed-shape buffer."""
+        return self._num_rows // self.n_dev
 
     # ---- checkpoint / resume -------------------------------------------
     # Global row order is serialised, so a resume may use a mesh of a
@@ -120,7 +113,7 @@ class ShardedPrimeFieldSumcheck:
             return d
         replicate = jax.jit(
             lambda e: e, out_shardings=NamedSharding(self.mesh, Pspec()))
-        g = np.asarray(replicate(self._device_evals))   # (D, 2, J, 4)
+        g = np.asarray(replicate(self._device_evals))[:, :, :self._rows]
         d["evals"] = np.ascontiguousarray(
             g.transpose(1, 2, 0, 3).reshape(2, -1, 4))
         d["tail"] = None
@@ -151,7 +144,8 @@ class ShardedPrimeFieldSumcheck:
     def round_messages(self) -> np.ndarray:
         if self._tail is not None:
             return self._tail.round_messages()
-        return np.asarray(self._round_fn(self._device_evals))
+        return np.asarray(self._round_fn(
+            self._device_evals, jnp.int32(self._rows)))
 
     def fold(self, challenge) -> None:
         if self._tail is not None:
@@ -159,7 +153,8 @@ class ShardedPrimeFieldSumcheck:
             self.round += 1
             return
         challenge = jnp.asarray(challenge, dtype=jnp.uint32).reshape(4)
-        self._device_evals = self._fold_fn(self._device_evals, challenge)
+        self._device_evals = self._fold_fn(
+            self._device_evals, challenge, jnp.int32(self._rows))
         self._num_rows //= 2
         self.round += 1
         if self._num_rows == self.n_dev:

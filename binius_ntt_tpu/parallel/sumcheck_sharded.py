@@ -10,6 +10,11 @@ communication in the entire protocol is one XOR all-reduce of the
 analogue of the reference's atomicXor reduction
 (src/ulvt/sumcheck/core/kernels.cuh:86-101).
 
+Each device runs the single-chip fixed-shape kernels (prover.py's
+``_round_kernel_tiled`` and ``_fold_kernel_tiled``) on its local buffer,
+which keeps its shape for the whole protocol while the live row count
+halves: one compile serves every round.
+
 When one batch row per device remains, the state is gathered and the tail
 rounds run on the single-chip path (mirroring the reference's GPU->CPU
 migration at 32 evaluations, sumcheck.cuh:283-297).
@@ -24,51 +29,19 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as Pspec
 
-from ..fields import bitsliced as bf
 from ..sumcheck.prover import (
     BITS_WIDTH,
-    INTERPOLATION_TOWER_HEIGHT,
     INTS_PER_VALUE,
-    TOWER_HEIGHT,
     Sumcheck,
     _compute_sum,
+    _fold_kernel_tiled,
+    _round_kernel_tiled,
 )
 from ..layout.bitslicing import repeat_value_bitsliced
 from .collectives import xor_all_reduce
 from .mesh import AXIS
 
 __all__ = ["ShardedSumcheck"]
-
-
-def _xor_reduce(x, axis):
-    return jax.lax.reduce(x, jnp.uint32(0), jax.lax.bitwise_xor, (axis,))
-
-
-def _local_round(evals, coeffs, *, num_points: int):
-    """Per-device round body; evals: (C, B_loc, 128) local rows."""
-    from ..sumcheck.prover import _composition as composition
-
-    sum_part = _xor_reduce(composition(evals), 0)
-    half = evals.shape[1] // 2
-    lower, upper = evals[:, :half], evals[:, half:]
-    xh = lower ^ upper
-    parts = [sum_part]
-    for p in range(num_points):
-        prod = bf.mul_subfield_chunks(
-            xh, coeffs[p, : 1 << INTERPOLATION_TOWER_HEIGHT],
-            TOWER_HEIGHT, INTERPOLATION_TOWER_HEIGHT,
-        )
-        parts.append(_xor_reduce(composition(lower ^ prod), 0))
-    return xor_all_reduce(jnp.stack(parts), AXIS)
-
-
-def _local_fold(evals, coeff):
-    from ..sumcheck.prover import _mul128
-
-    half = evals.shape[1] // 2
-    lower, upper = evals[:, :half], evals[:, half:]
-    xh = lower ^ upper
-    return lower ^ _mul128(xh, jnp.broadcast_to(coeff, xh.shape))
 
 
 class ShardedSumcheck:
@@ -105,6 +78,7 @@ class ShardedSumcheck:
             from ..layout.bitslicing import bitslice_transpose
             dev = jax.jit(bitslice_transpose)(dev)
         self._device_evals = dev      # (D, C, B/D, W) sharded on axis 0
+        self._rows = b // self.n_dev  # live local rows of the buffer
         self._tail: Sumcheck | None = None
         self._build_fns()
 
@@ -129,14 +103,14 @@ class ShardedSumcheck:
         self._round_fn = jax.jit(jax.shard_map(
             partial(_wrapped_round, num_points=self.num_points),
             mesh=mesh,
-            in_specs=(Pspec(AXIS), Pspec()),
+            in_specs=(Pspec(AXIS), Pspec(), Pspec()),
             out_specs=Pspec(),
             check_vma=False,
         ))
         self._fold_fn = jax.jit(jax.shard_map(
             _wrapped_fold,
             mesh=mesh,
-            in_specs=(Pspec(AXIS), Pspec()),
+            in_specs=(Pspec(AXIS), Pspec(), Pspec()),
             out_specs=Pspec(AXIS),
         ))
 
@@ -163,7 +137,7 @@ class ShardedSumcheck:
         # cyclic layout: (D, C, J, W) -> global row j*D + d
         replicate = jax.jit(
             lambda e: e, out_shardings=NamedSharding(self.mesh, Pspec()))
-        g = np.asarray(replicate(self._device_evals))
+        g = np.asarray(replicate(self._device_evals))[:, :, :self._rows]
         d["evals"] = np.ascontiguousarray(
             g.transpose(1, 2, 0, 3).reshape(
                 self.composition_size, -1, BITS_WIDTH))
@@ -198,17 +172,15 @@ class ShardedSumcheck:
                            ).transpose(2, 0, 1, 3)
         self._device_evals = jax.device_put(
             arr, NamedSharding(mesh, Pspec(AXIS)))
+        self._rows = b // self.n_dev
         self._tail = None
         return self
-
-    @property
-    def _local_rows(self) -> int:
-        return self._device_evals.shape[2] if self._device_evals is not None else 0
 
     def round_messages(self):
         if self._tail is not None:
             return self._tail.round_messages()
-        parts = np.asarray(self._round_fn(self._device_evals, self._coeffs))
+        parts = np.asarray(self._round_fn(
+            self._device_evals, self._coeffs, jnp.int32(self._rows)))
         s = _compute_sum(parts[0], 32)
         pts = np.stack([_compute_sum(parts[1 + p], 32)
                         for p in range(self.num_points)])
@@ -221,9 +193,11 @@ class ShardedSumcheck:
             return
         challenge = np.asarray(challenge, np.uint32).reshape(INTS_PER_VALUE)
         coeff = jnp.asarray(repeat_value_bitsliced(challenge, BITS_WIDTH))
-        self._device_evals = self._fold_fn(self._device_evals, coeff)
+        self._device_evals = self._fold_fn(
+            self._device_evals, coeff, jnp.int32(self._rows))
+        self._rows //= 2
         self.round += 1
-        if self._local_rows == 1:
+        if self._rows == 1:
             # gather: rows are (j=0, d) -> global row r = d, already ordered.
             # Replicate on device first — np.asarray on a Pspec(AXIS)-sharded
             # array raises for non-addressable shards under a multi-process
@@ -240,11 +214,13 @@ class ShardedSumcheck:
             self._device_evals = None
 
 
-def _wrapped_round(evals, coeffs, *, num_points: int):
-    # evals arrives as (1, C, B_loc, W) per device (axis 0 sharded);
-    # the all-reduced result is replicated, matching out_specs=P().
-    return _local_round(evals[0], coeffs, num_points=num_points)
+def _wrapped_round(evals, coeffs, rows, *, num_points: int):
+    # evals arrives as (1, C, B_loc, W) per device (axis 0 sharded); the
+    # XOR all-reduce of the local partials is replicated, matching
+    # out_specs=P().
+    part = _round_kernel_tiled(evals[0], coeffs, rows, num_points=num_points)
+    return xor_all_reduce(part, AXIS)
 
 
-def _wrapped_fold(evals, coeff):
-    return _local_fold(evals[0], coeff)[None]
+def _wrapped_fold(evals, coeff, rows):
+    return _fold_kernel_tiled(evals[0], coeff, rows)[None]

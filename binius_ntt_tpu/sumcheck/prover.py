@@ -1,4 +1,4 @@
-"""Sumcheck prover over GF(2^128), bit-sliced — TPU-native.
+"""Sumcheck prover over GF(2^128), bit-sliced.
 
 Protocol/API parity with the reference prover
 (src/ulvt/sumcheck/sumcheck.cuh:82-301):
@@ -12,10 +12,10 @@ Protocol/API parity with the reference prover
   * ``move_to_next_round(challenge)`` folds every column in half:
     lower' = lower + challenge * (lower + upper) (core.cu:25-56);
   * when 32 evaluations remain the state migrates to the host and the tail
-    rounds run there (sumcheck.cuh:160-195, 283-297) — on TPU the tail is
-    negligible and runs replicated in numpy via the same jnp kernels on CPU.
+    rounds run there (sumcheck.cuh:160-195, 283-297) — the tail is
+    negligible and runs in numpy via the same jnp kernels on CPU.
 
-TPU-first formulation: the whole round is a single jitted program —
+The round is a single jitted program —
   - composition products: (COMPOSITION_SIZE-1) bit-sliced stacked-Karatsuba
     multiplies over a (C, B, 128) array (fields/bitsliced.py);
   - interpolation folds: height-2 subfield chunk multiplies (core.cu:45-48);
@@ -38,6 +38,7 @@ from ..layout.bitslicing import (
     bitslice_untranspose,
     repeat_value_bitsliced,
 )
+from ..utils.capabilities import check_platform
 
 __all__ = ["Sumcheck"]
 
@@ -61,27 +62,8 @@ def _compute_sum(batch: np.ndarray, count: int) -> np.ndarray:
     return out
 
 
-def _use_pallas() -> bool:
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
 def _mul128(a, b):
-    """Full-height bit-sliced multiply, Pallas-accelerated on TPU.
-
-    The Pallas kernel keeps the whole 3^7-AND pipeline in VMEM (~40x faster
-    than the XLA elementwise path; see ntt/pallas_kernels.py)."""
-    if _use_pallas() and a.shape == b.shape and a.ndim >= 2:
-        from ..ntt import pallas_kernels as pk
-
-        lead = a.shape[:-1]
-        n = 1
-        for d in lead:
-            n *= d
-        if n % 8 == 0 or n in (1, 2, 4):
-            return pk.mul_tiles(
-                a.reshape(n, W), b.reshape(n, W)).reshape(a.shape)
+    """Full-height bit-sliced multiply (stacked Karatsuba)."""
     return bf.multiply(a, b, TOWER_HEIGHT)
 
 
@@ -98,9 +80,16 @@ def _xor_reduce(x, axis=0):
     return jax.lax.reduce(x, jnp.uint32(0), jax.lax.bitwise_xor, (axis,))
 
 
-# Row-tile size for the fixed-shape kernels: one compile serves every round
-# (the TPU analogue of the reference's grid-stride loop, kernels.cuh:25).
-ROW_TILE = 256
+# Row-tile size of the plain fixed-shape kernels: one compile serves every
+# round (cf. the reference's grid-stride loop, kernels.cuh:25).  The
+# stacked multiply holds ~17x a tile in leaf planes, ~70 MB per column at
+# 4096 rows.  On an H100 the full 2^24 protocol took 2.72 / 2.88 / 2.86 s
+# at C=2 and 4.37 / 4.41 / 4.94 s at C=3 for tiles of 4096 / 1024 / 256
+# (tools/row_tile_ab.py; PERF.md).  A power of two:
+# then a tile smaller than the live half divides it, and a larger one
+# reads rows still inside the buffer (a slice past its end would be
+# clamped, not refused).
+ROW_TILE = 4096
 
 
 @partial(jax.jit, static_argnames=("num_points",), donate_argnums=())
@@ -209,6 +198,7 @@ class Sumcheck:
             raise ValueError("num_vars must be >= 6 (at least two batches)")
         if composition_size < 2:
             raise ValueError("composition_size must be >= 2")
+        check_platform()
         self.num_vars = num_vars
         self.composition_size = composition_size
         self.num_points = composition_size + 1
@@ -319,26 +309,10 @@ class Sumcheck:
         num = self._num_evals
         if num > 32:
             rows = num // 32
-            b = self._device_evals.shape[1]
-            use_pl = _use_pallas()
-            if use_pl:
-                from . import pallas_round as pr
-            # tile >= 8: _acc_tile's (t//8, 8, W) reshape needs full
-            # sublane groups, so sub-8 tiles (num_vars 6-8 buffers) take
-            # the jnp while_loop kernel instead
-            if use_pl and (
-                    tile := pr.round_tile(self.composition_size, b)) >= 8 \
-                    and rows >= 2 * tile:
-                # fused Pallas round: fixed buffer shape + scalar-prefetched
-                # live-tile count -> ONE compile serves every round
-                parts = np.asarray(pr.round_kernel(
-                    self._device_evals, jnp.int32(rows),
-                    num_points=self.num_points))
-            else:
-                parts = np.asarray(_round_kernel_tiled(
-                    self._device_evals, self._coeffs, jnp.int32(rows),
-                    num_points=self.num_points,
-                ))
+            parts = np.asarray(_round_kernel_tiled(
+                self._device_evals, self._coeffs, jnp.int32(rows),
+                num_points=self.num_points,
+            ))
             sum_batch = parts[0]
             point_batches = parts[1:]
             # GPU path always sums all 32 lanes (sumcheck.cuh:238-243)
@@ -367,24 +341,9 @@ class Sumcheck:
 
         if num > 32:
             rows = num // 32
-            b = self._device_evals.shape[1]
-            use_pl = _use_pallas()
-            if use_pl:
-                from . import pallas_round as pr
-            if use_pl and (
-                    tile := pr.fold_tile(self.composition_size, b)) >= 8 \
-                    and rows >= 2 * tile:
-                # shrink the buffer exactly once (first full-occupancy
-                # fold): the whole protocol then compiles two shapes, and
-                # peak HBM at 2^28 evals stays in+out = 12 GB
-                self._device_evals = pr.fold_kernel(
-                    self._device_evals, jnp.asarray(challenge),
-                    jnp.int32(rows), shrink=(b == self._b0 and b >= 4))
-            else:
-                coeff = repeat_value_bitsliced(challenge, BITS_WIDTH)
-                self._device_evals = _fold_kernel_tiled(
-                    self._device_evals, jnp.asarray(coeff),
-                    jnp.int32(rows))
+            coeff = repeat_value_bitsliced(challenge, BITS_WIDTH)
+            self._device_evals = _fold_kernel_tiled(
+                self._device_evals, jnp.asarray(coeff), jnp.int32(rows))
             if num // 2 == 32:
                 # migrate to the host for the tail (sumcheck.cuh:283-297)
                 self._host_evals = np.asarray(self._device_evals[:, 0, :])

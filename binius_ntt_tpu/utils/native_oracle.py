@@ -2,7 +2,7 @@
 
 Builds the shared library on first use (g++ is part of the environment).
 Used to generate golden vectors at sizes the Python scalar oracle cannot
-reach, and as an implementation-independent cross-check of the TPU
+reach, and as an implementation-independent cross-check of the JAX
 pipelines (separate codebase and language).
 """
 

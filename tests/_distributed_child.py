@@ -5,8 +5,8 @@ JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID set — this
 exercises the PRODUCTION multi-host bring-up line
 (binius_ntt_tpu.parallel.mesh.initialize_distributed -> real
 jax.distributed.initialize, no monkeypatching) and real cross-process
-collectives (Gloo on the CPU backend; the same program text rides ICI/DCN
-on a TPU pod).
+collectives (Gloo on the CPU backend; the same program text runs over
+NCCL on GPUs).
 
 Usage: python tests/_distributed_child.py OUT_JSON
 """

@@ -32,7 +32,7 @@ from comm_volume import collective_bytes  # noqa: E402
 
 from binius_ntt_tpu.parallel.mesh import make_mesh  # noqa: E402
 from binius_ntt_tpu.parallel.ntt128_sharded import (  # noqa: E402
-    ShardedAdditiveNTT128, _dict_to_tuple)
+    ShardedAdditiveNTT128)
 from binius_ntt_tpu.parallel.sumcheck_sharded import (  # noqa: E402
     ShardedSumcheck)
 
@@ -52,10 +52,7 @@ def test_ntt128_ppermute_schedule(mesh):
     cosets = 1 << log_rate
     x = jax.device_put(np.zeros((cosets, nb, 128), np.uint32),
                        ntt._data_sharding)
-    high, lowb, lowl = ntt._tables
-    hlo = ntt._apply.lower(
-        x, _dict_to_tuple(high), _dict_to_tuple(lowb), _dict_to_tuple(lowl),
-        ntt._fused_arrays).compile().as_text()
+    hlo = ntt._apply.lower(x, *ntt._tables).compile().as_text()
     got = collective_bytes(hlo)
     from binius_ntt_tpu.parallel.ntt128_sharded import OVERLAP_HALVES
     shard_bytes = cosets * (nb // d) * 128 * 4
@@ -70,10 +67,12 @@ def test_sumcheck_collective_schedule(mesh):
     nv, c = 11, 2
     d = int(mesh.devices.size)
     s = ShardedSumcheck(np.zeros(4 * (1 << nv) * c, np.uint32), c, nv, mesh)
-    rhlo = s._round_fn.lower(s._device_evals, s._coeffs).compile().as_text()
+    rows = jax.numpy.int32(s._rows)
+    rhlo = s._round_fn.lower(
+        s._device_evals, s._coeffs, rows).compile().as_text()
     fhlo = s._fold_fn.lower(
-        s._device_evals,
-        jax.numpy.zeros((128,), jax.numpy.uint32)).compile().as_text()
+        s._device_evals, jax.numpy.zeros((128,), jax.numpy.uint32),
+        rows).compile().as_text()
     rgot = collective_bytes(rhlo)
     fgot = collective_bytes(fhlo)
     assert rgot["all-gather"]["count"] == 1

@@ -87,7 +87,7 @@ def test_two_process_distributed(tmp_path):
     sliced = bitslice_transpose(words.reshape(-1, 128))
     import jax.numpy as jnp
     ref_out = np.asarray(AdditiveNTT128(
-        LOG_H, 0, use_pallas=False).apply_sliced(jnp.asarray(sliced)))
+        LOG_H, 0).apply_sliced(jnp.asarray(sliced)))
     ref_md5 = hashlib.md5(ref_out.astype("<u4").tobytes()).hexdigest()
 
     for r in results:

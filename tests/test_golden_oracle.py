@@ -5,8 +5,8 @@ GF(2^32) at rates 0/2): the GF(2^128) transform at committed digests, and
 every other accepted log_rate (1/3/4 — domain per nttconf.cuh:55-60) for
 both widths.  Digests minted by tools/gen_golden128.py, whose oracle first
 reproduces the reference's GF(2^32) table (see _selfcheck there and
-tests/test_native_oracle.py).  Device-scale sweeps of the same tables run
-in tools/tpu_validation.py (suites ntt128_golden / rates).
+tests/test_native_oracle.py).  chip_smoke.py checks the 2^24 entries on
+the card.
 """
 
 import hashlib

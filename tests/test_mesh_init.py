@@ -23,29 +23,12 @@ def _fresh(monkeypatch):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     monkeypatch.delenv("JAX_NUM_PROCESSES", raising=False)
     monkeypatch.delenv("JAX_PROCESS_ID", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
     yield calls
 
 
 def test_single_process_noop(_fresh):
     assert pm.initialize_distributed() is False
     assert _fresh == []
-
-
-def test_single_worker_hostname_noop(_fresh, monkeypatch):
-    # the dev container sets TPU_WORKER_HOSTNAMES=localhost — one entry
-    # must NOT trigger pod auto-detection
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
-    assert pm.initialize_distributed() is False
-    assert _fresh == []
-
-
-def test_pod_autodetect(_fresh, monkeypatch):
-    # multi-entry worker list = Cloud TPU pod: bare initialize() so JAX
-    # self-configures from TPU metadata
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "w0,w1,w2,w3")
-    assert pm.initialize_distributed() is True
-    assert _fresh == [((), {})]
 
 
 def test_env_explicit_config(_fresh, monkeypatch):

@@ -7,6 +7,7 @@ challenge, with the exact reference challenge value.
 """
 
 import numpy as np
+import pytest
 
 from binius_ntt_tpu.fields.m31 import P, qm31_add_host, qm31_mul_host
 from binius_ntt_tpu.sumcheck.prime_field import (
@@ -22,7 +23,17 @@ def test_interpolate_constant():
     assert (r == np.array([4, 0, 0, 0], np.uint32)).all()
 
 
-def test_protocol_num_vars_12():
+@pytest.mark.parametrize("tile", [None, 1, 64])
+def test_protocol_num_vars_12(tile, monkeypatch):
+    """tile: ROW_TILE of the while_loop kernels (None: the default); a
+    small tile makes every round take several loop steps."""
+    if tile is not None:
+        import jax
+
+        from binius_ntt_tpu.sumcheck import prime_field
+
+        monkeypatch.setattr(prime_field, "ROW_TILE", tile)
+        jax.clear_caches()              # the tile is read at trace time
     num_vars = 12
     n = 1 << num_vars
     col = np.zeros((n, 4), np.uint32)
@@ -50,6 +61,9 @@ def test_protocol_num_vars_12():
     final = np.asarray(s._evals)[:, 0, :]
     final_prod = qm31_mul_host(final[0], final[1])
     assert (final_prod == expected_claim).all()
+    if tile is not None:
+        monkeypatch.undo()
+        jax.clear_caches()
 
 
 def test_m31_add_canonicalises_p_alias():

@@ -31,9 +31,21 @@ def test_sharded_ntt_bit_identical(log_h, log_rate):
 
 
 @needs_mesh
-def test_sharded_sumcheck_bit_identical():
-    mesh = make_mesh()
-    nv, comp = 10, 2
+@pytest.mark.parametrize("nv,comp,n_dev,tile", [
+    (10, 2, 8, None),
+    (9, 3, 4, None),
+    (10, 4, 2, 2),       # several while_loop steps per local round
+    (11, 2, 8, 1),
+])
+def test_sharded_sumcheck_bit_identical(nv, comp, n_dev, tile, monkeypatch):
+    """Each device runs the single-chip tiled kernels on its local rows;
+    tile: prover.ROW_TILE (None: the default)."""
+    if tile is not None:
+        from binius_ntt_tpu.sumcheck import prover
+
+        monkeypatch.setattr(prover, "ROW_TILE", tile)
+        jax.clear_caches()              # the tile is read at trace time
+    mesh = make_mesh(n_dev)
     n_ints = INTS_PER_VALUE * (1 << nv) * comp
     vals = mt19937_stream(123, n_ints + 4 * nv)
     evals, chals = vals[:n_ints], vals[n_ints:].reshape(nv, 4)
@@ -49,77 +61,58 @@ def test_sharded_sumcheck_bit_identical():
     sa, _ = a.round_messages()
     sb, _ = b.round_messages()
     assert (sa == sb).all()
+    if tile is not None:
+        monkeypatch.undo()
+        jax.clear_caches()
 
 
 @needs_mesh
 def test_dryrun_multichip_entry():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)
 
 
 @needs_mesh
-@pytest.mark.parametrize("log_h,log_rate", [(9, 0), (10, 1)])
-def test_sharded_ntt128_bit_identical(log_h, log_rate):
-    from binius_ntt_tpu.layout.bitslicing import bitslice_transpose
-    from binius_ntt_tpu.ntt.additive_bitsliced import AdditiveNTT128
-    from binius_ntt_tpu.parallel.ntt128_sharded import ShardedAdditiveNTT128
-
-    import jax.numpy as jnp
-
-    mesh = make_mesh()
-    words = mt19937_stream(0xBEEF + log_h, (1 << log_h) * 4)
-    sliced = np.asarray(
-        bitslice_transpose(jnp.asarray(words.reshape(-1, 128))))
-    ref = np.asarray(AdditiveNTT128(
-        log_h, log_rate, use_pallas=False).apply_sliced(jnp.asarray(sliced)))
-    got = np.asarray(ShardedAdditiveNTT128(
-        log_h, log_rate, mesh).apply_sliced(sliced))
-    assert (ref == got).all()
-
-
-@needs_mesh
-@pytest.mark.parametrize("log_h,log_rate,fused", [
-    (9, 0, False),       # per-stage local path (fused off)
-    (13, 0, True),       # fused local path with an upper-group seam
-    (14, 2, True),       # + cosets through the split instance index
+@pytest.mark.parametrize("log_h,log_rate,n_dev", [
+    (9, 0, 8),       # two local batches per device
+    (10, 1, 8),      # cosets
+    (13, 0, 8),      # several shard-local high stages
+    (14, 2, 8),      # rate 2: cosets through the stage indicators
+    (11, 3, 4),      # rate 3 on a smaller mesh
+    (12, 4, 2),      # rate 4, two devices
+    (10, 0, 1),      # one device: every stage shard-local
 ])
-def test_sharded_ntt128_fused_variants(log_h, log_rate, fused, monkeypatch):
-    """The fused shard-local path (device-index twiddle correction planes,
-    pallas_fused.build_tables_sharded) is bit-identical to the single-chip
-    transform across group seams."""
+def test_sharded_ntt128_bit_identical(log_h, log_rate, n_dev):
+    """The sharded transform (cross-device ppermute stages, then the
+    single-device stage bodies on each shard's slice of the twiddle
+    tables) is bit-identical to the single-device transform."""
     from binius_ntt_tpu.layout.bitslicing import bitslice_transpose
-    from binius_ntt_tpu.ntt import pallas_fused as pf
     from binius_ntt_tpu.ntt.additive_bitsliced import AdditiveNTT128
     from binius_ntt_tpu.parallel.ntt128_sharded import ShardedAdditiveNTT128
 
     import jax.numpy as jnp
 
-    if fused:
-        monkeypatch.setattr(pf, "KB", 2)
-        monkeypatch.setattr(pf, "KU", 2)
-        monkeypatch.setattr(pf, "PT", 2)
-    mesh = make_mesh()
+    mesh = make_mesh(n_dev)
     words = mt19937_stream(0xBEEF + log_h, (1 << log_h) * 4)
     sliced = np.asarray(
         bitslice_transpose(jnp.asarray(words.reshape(-1, 128))))
     ref = np.asarray(AdditiveNTT128(
-        log_h, log_rate, use_pallas=False).apply_sliced(jnp.asarray(sliced)))
-    got = np.asarray(ShardedAdditiveNTT128(
-        log_h, log_rate, mesh, use_fused=fused).apply_sliced(sliced))
-    assert (ref == got).all()
+        log_h, log_rate).apply_sliced(jnp.asarray(sliced)))
+    out = ShardedAdditiveNTT128(log_h, log_rate, mesh).apply_sliced(sliced)
+    assert len({sh.device for sh in out.addressable_shards}) == n_dev
+    assert (ref == np.asarray(out)).all()
 
 
 @needs_mesh
 def test_sharded_ntt128_production_geometry():
-    """Flagship plan at PRODUCTION tile geometry (default KB/KU/PT, no
-    miniaturisation): log_h 18 over 8 devices gives 1024 local batch rows
-    per shard, so the fused local path runs multiple full-size tiles and
-    crosses an upper-group seam exactly as a 2^28-scale shard would.
-    Complements the KB=2 miniature cases above (reference seam analog:
-    additive_ntt.cuh:222-247). ~75 s on the CPU mesh."""
+    """log_h 18 over 8 devices: 1024 local batch rows per shard, 13
+    shard-local high stages below 3 cross-device ones — the stage mix of
+    a 2^28 transform on 8 devices, at a size the CPU runs."""
     from binius_ntt_tpu.layout.bitslicing import bitslice_transpose
     from binius_ntt_tpu.ntt.additive_bitsliced import AdditiveNTT128
     from binius_ntt_tpu.parallel.ntt128_sharded import ShardedAdditiveNTT128
@@ -132,14 +125,15 @@ def test_sharded_ntt128_production_geometry():
     sliced = np.asarray(
         bitslice_transpose(jnp.asarray(words.reshape(-1, 128))))
     ref = np.asarray(AdditiveNTT128(
-        log_h, 0, use_pallas=False).apply_sliced(jnp.asarray(sliced)))
-    got = np.asarray(ShardedAdditiveNTT128(
-        log_h, 0, mesh, use_fused=True).apply_sliced(sliced))
+        log_h, 0).apply_sliced(jnp.asarray(sliced)))
+    got = np.asarray(ShardedAdditiveNTT128(log_h, 0, mesh).apply_sliced(
+        sliced))
     assert (ref == got).all()
 
 
 @needs_mesh
-def test_sharded_prime_sumcheck_bit_identical():
+@pytest.mark.parametrize("nv,n_dev", [(7, 8), (8, 4), (9, 1)])
+def test_sharded_prime_sumcheck_bit_identical(nv, n_dev):
     """QM31 sharded prover == single-chip prover, full protocol (the
     prime-field analogue of the binary-field parity test; reference
     reduction: prime_field_sumcheck/core/kernels.cu:70-77)."""
@@ -148,8 +142,7 @@ def test_sharded_prime_sumcheck_bit_identical():
         ShardedPrimeFieldSumcheck)
     from binius_ntt_tpu.sumcheck.prime_field import PrimeFieldSumcheck
 
-    mesh = make_mesh()
-    nv = 7
+    mesh = make_mesh(n_dev)
     rng = np.random.default_rng(51)
     evals = rng.integers(0, P, size=(2, 1 << nv, 4), dtype=np.uint32)
     chals = rng.integers(0, P, size=(nv, 4), dtype=np.uint32)

@@ -59,6 +59,33 @@ def test_protocol(comp, transposed):
     run_protocol(8, comp, transposed, seed=1000 + comp)
 
 
+@pytest.fixture
+def row_tile(monkeypatch):
+    """Set prover.ROW_TILE for one test; the tile is read at trace time,
+    so the jit caches are cleared on the way in and out."""
+    import jax
+
+    from binius_ntt_tpu.sumcheck import prover
+
+    def set_tile(tile):
+        monkeypatch.setattr(prover, "ROW_TILE", tile)
+        jax.clear_caches()
+
+    yield set_tile
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("tile", [1, 2, 8])
+@pytest.mark.parametrize("comp", [2, 4])
+def test_protocol_multi_tile(tile, comp, row_tile):
+    """Tiles smaller than the live half make the round and fold kernels
+    take several while_loop steps, as at 2^24; the protocol still checks
+    round by round and against the brute-force final evaluation."""
+    row_tile(tile)
+    run_protocol(10, comp, False, seed=2000 + comp)
+
+
 def test_lagrange_oracle_basics():
     # interpolating through the points of x^2 over GF(2^128) tower:
     # p(x) = x*x sampled at 0,1,2 -> evaluate at arbitrary challenge
@@ -91,40 +118,6 @@ def test_checkpoint_resume_identical_messages():
         assert np.array_equal(sa, sb) and np.array_equal(pa, pb)
         a.move_to_next_round(challenges[r])
         b.move_to_next_round(challenges[r])
-
-
-def test_small_buffer_avoids_pallas_path(monkeypatch):
-    """num_vars 6-8 buffers (b <= 8 rows) have round/fold tiles < 8, which
-    the Pallas kernels cannot reshape into sublane groups — the prover must
-    dispatch them to the jnp while_loop kernels even on TPU backends."""
-    import binius_ntt_tpu.sumcheck.prover as prover_mod
-    from binius_ntt_tpu.sumcheck import pallas_round as pr
-
-    import binius_ntt_tpu.fields.bitsliced as bf
-    import binius_ntt_tpu.ntt.pallas_kernels as pk
-
-    calls = []
-    monkeypatch.setattr(prover_mod, "_use_pallas", lambda: True)
-    # the inner multiply also keys off the backend; keep it on jnp so the
-    # test isolates the round/fold kernel dispatch
-    monkeypatch.setattr(pk, "mul_tiles", lambda a, b: bf.multiply(a, b, 7))
-    monkeypatch.setattr(
-        pr, "round_kernel",
-        lambda *a, **k: calls.append("round") or (_ for _ in ()).throw(
-            AssertionError("pallas round_kernel must not run for t<8")))
-    monkeypatch.setattr(
-        pr, "fold_kernel",
-        lambda *a, **k: calls.append("fold") or (_ for _ in ()).throw(
-            AssertionError("pallas fold_kernel must not run for t<8")))
-
-    num_vars, comp = 7, 2
-    evals = mt19937_stream(55, INTS_PER_VALUE * (1 << num_vars) * comp)
-    s = Sumcheck(evals, comp, num_vars)
-    sm, pts = s.round_messages()
-    assert V.words_to_int(sm) == V.words_to_int(pts[0]) ^ V.words_to_int(pts[1])
-    s.move_to_next_round(np.arange(4, dtype=np.uint32))
-    s.round_messages()
-    assert not calls
 
 
 def test_device_resident_presliced_ctor_matches():

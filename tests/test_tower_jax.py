@@ -6,8 +6,9 @@ SWAR heights 3/4 (test_fanpaartower.cu:9-53), height 0/2/5 lane semantics
 and 128-bit products (test_fanpaartower.cu:122-274, tests.cu:115-201).
 """
 
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 from binius_ntt_tpu.fields import bitsliced as bf
 from binius_ntt_tpu.fields import tower_scalar as ts
@@ -225,3 +226,31 @@ def test_inverse_packed_matches_oracle():
         prod = np.asarray(mul_packed(jnp.asarray(vals), jnp.asarray(got), h))
         assert all(int(p) == (1 if v else 0)
                    for p, v in zip(prod, vals))
+
+
+
+def _to_planes(vals, w):
+    """(..., 32) element values of w bits -> (..., w) bit-planes."""
+    bits = (vals[..., None, :] >> np.arange(w, dtype=object)[:, None]) & 1
+    return (bits << np.arange(32, dtype=object)).sum(-1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("h", [2, 3, 4, 5, 6, 7])
+def test_multiply_broadcast_vs_scalar(h):
+    """A (3, 2^h) stack times one broadcast (1, 2^h) batch — the twiddle
+    broadcast of the NTT stages — equals the scalar tower product lane by
+    lane."""
+    w = 1 << h
+    rng = np.random.default_rng(60 + h)
+    a_el = np.array([[int.from_bytes(rng.bytes(w // 8 or 1), "little")
+                      % (1 << w) for _ in range(32)] for _ in range(3)],
+                    dtype=object)
+    b_el = np.array([[int.from_bytes(rng.bytes(w // 8 or 1), "little")
+                      % (1 << w) for _ in range(32)]], dtype=object)
+    got = np.asarray(bf.multiply(jnp.asarray(_to_planes(a_el, w)),
+                                 jnp.asarray(_to_planes(b_el, w)), h))
+    assert got.shape == (3, w)
+    for r in range(3):
+        for j in range(32):
+            gv = sum(((int(got[r, i]) >> j) & 1) << i for i in range(w))
+            assert gv == ts.multiply(int(a_el[r, j]), int(b_el[0, j]), h)

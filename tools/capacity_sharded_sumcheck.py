@@ -15,13 +15,12 @@ sharded prover is correct and memory-scaled at capacity:
     claim == Lagrange(points, challenge) == p'(0) ^ p'(1);
   * per-shard buffer bytes == total/D exactly (printed below).
 
-Memory math for the real target (SCALING.md §4): 2^28 x C=4 x 16 B =
-17.2 GB > 16 GB v5e HBM -> D >= 2 required; at D=8 each shard holds
-2.1 GB + the replicated coefficient batches (a few KB).
+Memory math for the real target: 2^28 x C=4 x 16 B = 17.2 GB; at D=8
+each shard holds 2.1 GB + the replicated coefficient batches (a few KB).
 
 Usage:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
             python tools/capacity_sharded_sumcheck.py [nv] [comp]
-Appends one JSON row (suite "sharded_capacity") to TPU_VALIDATION.jsonl.
+Prints one JSON row (suite "sharded_capacity").
 """
 
 from __future__ import annotations
@@ -32,8 +31,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-REPORT = os.path.join(os.path.dirname(__file__), "..", "TPU_VALIDATION.jsonl")
 
 
 def main() -> None:
@@ -98,8 +95,6 @@ def main() -> None:
         "fold_s": round(fold_s, 1),
         "ts": round(time.time(), 1),
     }
-    with open(REPORT, "a") as f:
-        f.write(json.dumps(rec) + "\n")
     print(json.dumps(rec), flush=True)
     sys.exit(0 if ok else 1)
 

@@ -1,6 +1,6 @@
 """Offline straight-line circuit generator for bit-sliced tower multiply.
 
-TPU-native equivalent of the reference's codegen tool
+The JAX library's equivalent of the reference's codegen tool
 (src/ulvt/finite_fields/circuit_generator/multiply_and_generate_circuit.cpp:10-242),
 which symbolically executes the Karatsuba tower recursion over word addresses
 and emits ~30k lines of straight-line CUDA XOR/AND statements.
@@ -8,8 +8,8 @@ and emits ~30k lines of straight-line CUDA XOR/AND statements.
 Here the same symbolic execution produces:
   * an op list (op, dst, a, b) — exactly 3^h ANDs plus XOR/copy glue;
   * a generated Python source string evaluating the circuit over any array
-    namespace — usable as an unrolled Pallas kernel body (each statement is
-    one whole-tile VPU op) or as an independent cross-check of
+    namespace — usable as an unrolled kernel body (each statement is one
+    elementwise op) or as an independent cross-check of
     fields/bitsliced.py (which evaluates the same recursion level-
     synchronously instead of materialising the statements).
 
@@ -92,8 +92,8 @@ def generate(height: int):
 def emit_python(height: int) -> str:
     """Emit a straight-line Python function multiplying bit-sliced planes.
 
-    The body is pure elementwise AND/XOR statements — directly usable inside
-    a Pallas kernel (each v{i} is a whole VMEM tile).
+    The body is pure elementwise AND/XOR statements — directly usable as a
+    kernel body (each v{i} is a whole plane vector).
     """
     c, a, b, out = generate(height)
     w = 1 << height

@@ -97,11 +97,7 @@ def main() -> None:
     cosets = 1 << log_rate
     x = jax.device_put(
         np.zeros((cosets, nb, 128), np.uint32), ntt._data_sharding)
-    from binius_ntt_tpu.parallel.ntt128_sharded import _dict_to_tuple
-    high, lowb, lowl = ntt._tables
-    hlo = ntt._apply.lower(
-        x, _dict_to_tuple(high), _dict_to_tuple(lowb), _dict_to_tuple(lowl),
-        ntt._fused_arrays).compile().as_text()
+    hlo = ntt._apply.lower(x, *ntt._tables).compile().as_text()
     got = collective_bytes(hlo)
     # analytic: log2(D) cross-device stages x the local shard
     shard_bytes = cosets * (nb // d) * 128 * 4
@@ -116,10 +112,12 @@ def main() -> None:
     c = 2
     ev = np.zeros(4 * (1 << nv) * c, np.uint32)
     s = ShardedSumcheck(ev, c, nv, mesh)
-    rhlo = s._round_fn.lower(s._device_evals, s._coeffs).compile().as_text()
+    rows = jax.numpy.int32(s._rows)
+    rhlo = s._round_fn.lower(
+        s._device_evals, s._coeffs, rows).compile().as_text()
     fhlo = s._fold_fn.lower(
-        s._device_evals,
-        jax.numpy.zeros((128,), jax.numpy.uint32)).compile().as_text()
+        s._device_evals, jax.numpy.zeros((128,), jax.numpy.uint32),
+        rows).compile().as_text()
     rgot = collective_bytes(rhlo)
     fgot = collective_bytes(fhlo)
     # analytic: one all-reduce/gather of (1+P) 128-word partials per round

@@ -2,7 +2,7 @@
 //
 // Role: the framework's fast, independent reference implementation for
 // generating golden vectors at sizes the Python scalar oracle cannot reach
-// (the TPU pipelines are validated bit-exactly against it).  This mirrors
+// (the JAX pipelines are validated bit-exactly against it).  This mirrors
 // the reference repo's use of host-side C++ for offline tooling (its
 // circuit generator and CPU verifier paths); the algorithms are the
 // standard Fan-Paar tower recursion and the Gao-Mateer additive NTT as
